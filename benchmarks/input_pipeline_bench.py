@@ -1,8 +1,8 @@
 """Host input-pipeline throughput: numpy vs native (C++/OpenMP) Cloze batcher.
 
-The TPU step consumes ~31k examples/s at the flagship config (BENCH), so
-the host batch builder must produce well above that or it becomes the
-pipeline bottleneck the moment prefetch depth is exhausted. This bench
+The host batch builder must produce well above the train step's
+examples/s at the flagship config (bench.py) or it becomes the pipeline
+bottleneck the moment prefetch depth is exhausted. This bench
 measures both backends at flagship shapes, pure host time (no device).
 
   python benchmarks/input_pipeline_bench.py
@@ -28,9 +28,9 @@ def main():
     p.add_argument("--batches", type=int, default=200)
     args = p.parse_args()
 
-    from bert4clickpath_tpu.data import native
-    from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-    from bert4clickpath_tpu.data.pipeline import ClozeDataset
+    from bert4clickpath.data import native
+    from bert4clickpath.data.generator import ClickStreamGenerator
+    from bert4clickpath.data.pipeline import ClozeDataset
 
     gen = ClickStreamGenerator(
         n_items=args.items, session_cohesiveness=200, seed=0

@@ -1,10 +1,9 @@
-"""Scaling benchmark: examples/s across mesh shapes (1 chip / 1 host / N hosts).
+"""Scaling benchmark: examples/s across mesh shapes (1 device / 1 host / N hosts).
 
 Runs the SPMD train step over every requested mesh shape and reports
-examples/s plus scaling efficiency vs the smallest shape — the BASELINE.md
-"≥80% examples/s scaling" measurement hook. On a pod slice this measures
-real ICI/DCN scaling; on one chip or a virtual CPU mesh it validates the
-mechanics only.
+examples/s plus scaling efficiency vs the smallest shape. On several GPUs
+this measures real scaling over their interconnect; on one device or a
+virtual CPU mesh it validates the mechanics only.
 
   python benchmarks/scaling.py --meshes 1x1,2x1,4x1,4x2 --items 54542
 
@@ -33,12 +32,13 @@ def run_mesh(data_axis, model_axis, args, gen, vocab):
     import jax.numpy as jnp
     import numpy as np
 
-    from bert4clickpath_tpu import FeatureConfig, HeadConfig, MeshConfig, ModelConfig, TrainConfig
-    from bert4clickpath_tpu.data.pipeline import ClozeDataset
-    from bert4clickpath_tpu.parallel import spmd
-    from bert4clickpath_tpu.parallel.mesh import make_mesh
-    from bert4clickpath_tpu.training import schedules
-    from bert4clickpath_tpu.training.train_state import TrainState, make_optimizer
+    from bert4clickpath import FeatureConfig, HeadConfig, MeshConfig, ModelConfig, TrainConfig
+    from bert4clickpath.data.pipeline import ClozeDataset
+    from bert4clickpath.parallel import spmd
+    from bert4clickpath.parallel.mesh import make_mesh
+    from bert4clickpath.training import schedules
+    from bert4clickpath.training.train_state import TrainState, make_optimizer
+    from bert4clickpath.utils.device import backend_dtype
 
     n_procs = jax.process_count()
     mesh = make_mesh(
@@ -57,9 +57,9 @@ def run_mesh(data_axis, model_axis, args, gen, vocab):
         ffn_dim=4 * args.d_model,
         max_len=args.max_items + 3,
         head=HeadConfig("tied_softmax", output_size=vocab.label_vocab_size),
-        dtype="bfloat16" if jax.default_backend() == "tpu" else "float32",
+        dtype=backend_dtype(),
     )
-    from bert4clickpath_tpu.models.model import ClickstreamModel
+    from bert4clickpath.models.model import ClickstreamModel
 
     model = ClickstreamModel(cfg)
     per_device_batch = args.per_device_batch
@@ -84,7 +84,7 @@ def run_mesh(data_axis, model_axis, args, gen, vocab):
     if getattr(args, "tier", "spmd") == "tp":
         # tensor-parallel tier (parallel/tp.py): encoder kernels shard over
         # 'model' via XLA auto-partitioning; dense loss, replicated table
-        from bert4clickpath_tpu.parallel import tp
+        from bert4clickpath.parallel import tp
 
         state = tp.shard_tp_state(
             TrainState.create({"params": params}, tx), mesh, cfg
@@ -93,7 +93,7 @@ def run_mesh(data_axis, model_axis, args, gen, vocab):
     elif getattr(args, "tier", "spmd") == "tp_spmd":
         # composed tier (parallel/tp_spmd.py): Megatron-sharded encoder AND
         # vocab-sharded table + fused CE in one shard_map program
-        from bert4clickpath_tpu.parallel import tp_spmd
+        from bert4clickpath.parallel import tp_spmd
 
         state = tp_spmd.shard_state(TrainState.create(params, tx), mesh, cfg)
         step = tp_spmd.make_tp_spmd_train_step(
@@ -138,7 +138,7 @@ def run_mesh(data_axis, model_axis, args, gen, vocab):
 def run_shapes(args):
     import jax
 
-    from bert4clickpath_tpu.data.generator import ClickStreamGenerator
+    from bert4clickpath.data.generator import ClickStreamGenerator
 
     gen = ClickStreamGenerator(n_items=args.items, session_cohesiveness=200, seed=0)
     vocab = gen.item_vocab()

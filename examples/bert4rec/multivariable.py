@@ -5,7 +5,7 @@ separately and concatenated on the embedding axis (the reference's
 multi-variable design, transformer.py:346-390; SURVEY.md §2 "Encoder
 stack"), with the next-item retrieval head gathering [MASK] positions.
 
-Runs on CPU or TPU with simulated data:
+Runs on the CPU or a GPU with simulated data:
   python examples/bert4rec/multivariable.py --model_dir /tmp/mv --epochs 5
 """
 
@@ -23,14 +23,14 @@ jax.config.update("jax_default_prng_impl", "rbg")
 import jax.numpy as jnp
 import numpy as np
 
-from bert4clickpath_tpu import (
+from bert4clickpath import (
     ClickstreamModel,
     FeatureConfig,
     HeadConfig,
     ModelConfig,
     TrainConfig,
 )
-from bert4clickpath_tpu.constants import (
+from bert4clickpath.constants import (
     CLS_ID,
     LABEL_PAD,
     MASK_ID,
@@ -41,16 +41,16 @@ from bert4clickpath_tpu.constants import (
     PAD_ID,
     SEP_ID,
 )
-from bert4clickpath_tpu.data.cloze import ITEM_OFFSET, token_length
-from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-from bert4clickpath_tpu.training import schedules
-from bert4clickpath_tpu.training.train_state import (
+from bert4clickpath.data.cloze import ITEM_OFFSET, token_length
+from bert4clickpath.data.generator import ClickStreamGenerator
+from bert4clickpath.training import schedules
+from bert4clickpath.training.train_state import (
     TrainState,
     make_eval_step,
     make_optimizer,
     make_train_step,
 )
-from bert4clickpath_tpu.training.trainer import Trainer
+from bert4clickpath.training.trainer import Trainer
 
 
 def make_pair_batches(items_seqs, events_seqs, batch, max_items, rng, train=True):
@@ -168,8 +168,8 @@ def main(argv=None):
     # export + serve the paired-feature model: dict sessions, [MASK] on the
     # item feature and [NA] on the event feature at the appended next-item
     # slot (training/serving.py multi-variable contract)
-    from bert4clickpath_tpu.training import checkpoint as ckpt_lib
-    from bert4clickpath_tpu.training.serving import ServingModel
+    from bert4clickpath.training import checkpoint as ckpt_lib
+    from bert4clickpath.training.serving import ServingModel
 
     export_dir = ckpt_lib.export_serving(
         os.path.join(args.model_dir, "export"),

@@ -25,8 +25,8 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
-from bert4clickpath_tpu.data import etl
-from bert4clickpath_tpu.data.beauty import load_amazon_json, load_beauty
+from bert4clickpath.data import etl
+from bert4clickpath.data.beauty import load_amazon_json, load_beauty
 
 
 def main(argv=None):

@@ -26,21 +26,21 @@ jax.config.update("jax_default_prng_impl", "rbg")
 import jax.numpy as jnp
 import numpy as np
 
-from bert4clickpath_tpu import (
+from bert4clickpath import (
     ClickstreamModel,
     FeatureConfig,
     HeadConfig,
     ModelConfig,
     TrainConfig,
 )
-from bert4clickpath_tpu.constants import LABEL_PAD
-from bert4clickpath_tpu.data.cloze import make_eval_batch, make_train_batch
-from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-from bert4clickpath_tpu.data.pipeline import ClozeDataset
-from bert4clickpath_tpu.ops import metrics as M
-from bert4clickpath_tpu.training import checkpoint as ckpt_lib
-from bert4clickpath_tpu.training import schedules
-from bert4clickpath_tpu.training.train_state import (
+from bert4clickpath.constants import LABEL_PAD
+from bert4clickpath.data.cloze import make_eval_batch, make_train_batch
+from bert4clickpath.data.generator import ClickStreamGenerator
+from bert4clickpath.data.pipeline import ClozeDataset
+from bert4clickpath.ops import metrics as M
+from bert4clickpath.training import checkpoint as ckpt_lib
+from bert4clickpath.training import schedules
+from bert4clickpath.training.train_state import (
     TrainState,
     make_eval_step,
     make_optimizer,
@@ -62,7 +62,7 @@ def binary_batches(
     """CLS-routed binary batches: label = 1 iff mean item id > the
     ``threshold_frac`` point of the id range (0.5 = balanced; higher makes
     positives rare, the reference's pos_weight use case, losses.py:71-96)."""
-    from bert4clickpath_tpu.data.cloze import _empty_batch
+    from bert4clickpath.data.cloze import _empty_batch
 
     n = len(sequences)
     order = rng.permutation(n) if shuffle else np.arange(n)
@@ -71,7 +71,7 @@ def binary_batches(
         idx = order[start : start + batch]
         tokens, _, _ = _empty_batch(batch, max_items, 1)
         labels = np.full((batch, 1), LABEL_PAD, np.int32)
-        from bert4clickpath_tpu.constants import NUM_RESERVED_TOKENS
+        from bert4clickpath.constants import NUM_RESERVED_TOKENS
 
         for bi, si in enumerate(idx):
             seq = sequences[si][:max_items]
@@ -188,7 +188,7 @@ def main(argv=None):
     if pos_weight:
         from functools import partial
 
-        from bert4clickpath_tpu.ops.losses import masked_binary_cross_entropy
+        from bert4clickpath.ops.losses import masked_binary_cross_entropy
 
         loss_fn = partial(masked_binary_cross_entropy, pos_weight=pos_weight)
         print(f"pos_weight={pos_weight:.2f}", flush=True)

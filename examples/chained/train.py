@@ -16,7 +16,7 @@ predict the base rate; cross-attention pushes masked accuracy toward 90%.
 The membership rule takes ~15 epochs to emerge (the model must learn an
 attention-based "is this basket item in the history" check); by epoch 40
 masked F1 reaches ~0.85 vs the 0.64 all-positive baseline (0.90 = noise
-ceiling). Runs on CPU or TPU:
+ceiling). Runs on the CPU or a GPU:
   python examples/chained/train.py --model_dir /tmp/chained
 """
 
@@ -34,29 +34,29 @@ jax.config.update("jax_default_prng_impl", "rbg")
 import jax.numpy as jnp
 import numpy as np
 
-from bert4clickpath_tpu import (
+from bert4clickpath import (
     ClickstreamModel,
     FeatureConfig,
     HeadConfig,
     ModelConfig,
     TrainConfig,
 )
-from bert4clickpath_tpu.constants import LABEL_PAD, NUM_RESERVED_TOKENS, PAD_ID
-from bert4clickpath_tpu.data.chaining import (
+from bert4clickpath.constants import LABEL_PAD, NUM_RESERVED_TOKENS, PAD_ID
+from bert4clickpath.data.chaining import (
     chain_sequences,
     chained_length,
     segment_bounds,
 )
-from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-from bert4clickpath_tpu.ops.losses import masked_binary_cross_entropy
-from bert4clickpath_tpu.training import schedules
-from bert4clickpath_tpu.training.train_state import (
+from bert4clickpath.data.generator import ClickStreamGenerator
+from bert4clickpath.ops.losses import masked_binary_cross_entropy
+from bert4clickpath.training import schedules
+from bert4clickpath.training.train_state import (
     TrainState,
     make_eval_step,
     make_optimizer,
     make_train_step,
 )
-from bert4clickpath_tpu.training.trainer import Trainer
+from bert4clickpath.training.trainer import Trainer
 
 BASKET_LEN = 8
 

@@ -26,18 +26,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bert4clickpath_tpu import FeatureConfig, HeadConfig, MeshConfig, ModelConfig, TrainConfig
-from bert4clickpath_tpu.constants import (
+from bert4clickpath.utils.device import backend_dtype
+from bert4clickpath import FeatureConfig, HeadConfig, MeshConfig, ModelConfig, TrainConfig
+from bert4clickpath.constants import (
     CLS_ID,
     MASK_ID,
     NUM_RESERVED_TOKENS,
     PAD_ID,
     SEP_ID,
 )
-from bert4clickpath_tpu.parallel import spmd
-from bert4clickpath_tpu.parallel.mesh import make_mesh
-from bert4clickpath_tpu.training import schedules
-from bert4clickpath_tpu.training.train_state import TrainState, make_optimizer
+from bert4clickpath.parallel import spmd
+from bert4clickpath.parallel.mesh import make_mesh
+from bert4clickpath.training import schedules
+from bert4clickpath.training.train_state import TrainState, make_optimizer
 
 
 def synthetic_batch(rng, batch, max_items, max_masked, n_items):
@@ -98,7 +99,7 @@ def main(argv=None):
         ffn_dim=4 * args.d_model,
         max_len=args.max_items + 3,
         head=HeadConfig("tied_softmax", output_size=args.items),
-        dtype="bfloat16" if jax.default_backend() == "tpu" else "float32",
+        dtype=backend_dtype(),
     )
     table_gb = rows * args.d_model * 4 / 1e9
     print(
@@ -121,7 +122,7 @@ def main(argv=None):
     table = jax.jit(init_table, out_shardings=table_sharding)(k0)
 
     # encoder params from a tiny throwaway init (replicated)
-    from bert4clickpath_tpu.models.encoder import Encoder
+    from bert4clickpath.models.encoder import Encoder
 
     enc = spmd._encoder_module(cfg)
     dummy = jnp.zeros((2, cfg.max_len, cfg.d_model), jnp.float32)
@@ -132,7 +133,7 @@ def main(argv=None):
     tx = make_optimizer(tcfg)
     if args.sampled:
         # pjit tier wants the wrapped tree (the standard step applies it)
-        from bert4clickpath_tpu.models.model import ClickstreamModel
+        from bert4clickpath.models.model import ClickstreamModel
 
         state = spmd.shard_state(
             TrainState.create({"params": params}, tx), mesh, cfg

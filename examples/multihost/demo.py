@@ -37,7 +37,7 @@ def worker(process_id: int, num_processes: int, port: int):
     import jax.numpy as jnp
     import numpy as np
 
-    from bert4clickpath_tpu import (
+    from bert4clickpath import (
         ClickstreamModel,
         FeatureConfig,
         HeadConfig,
@@ -45,12 +45,12 @@ def worker(process_id: int, num_processes: int, port: int):
         ModelConfig,
         TrainConfig,
     )
-    from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-    from bert4clickpath_tpu.data.pipeline import ClozeDataset
-    from bert4clickpath_tpu.parallel import spmd
-    from bert4clickpath_tpu.parallel.mesh import make_mesh
-    from bert4clickpath_tpu.training import schedules
-    from bert4clickpath_tpu.training.train_state import TrainState, make_optimizer
+    from bert4clickpath.data.generator import ClickStreamGenerator
+    from bert4clickpath.data.pipeline import ClozeDataset
+    from bert4clickpath.parallel import spmd
+    from bert4clickpath.parallel.mesh import make_mesh
+    from bert4clickpath.training import schedules
+    from bert4clickpath.training.train_state import TrainState, make_optimizer
 
     n_dev = len(jax.devices())
     assert n_dev == 4 * num_processes, (n_dev, num_processes)

@@ -28,24 +28,24 @@ jax.config.update("jax_default_prng_impl", "rbg")
 import jax.numpy as jnp
 import numpy as np
 
-from bert4clickpath_tpu import (
+from bert4clickpath import (
     ClickstreamModel,
     FeatureConfig,
     HeadConfig,
     ModelConfig,
     TrainConfig,
 )
-from bert4clickpath_tpu.constants import NUM_RESERVED_TOKENS, PAD_ID
-from bert4clickpath_tpu.data.chaining import chain_sequences, chained_length
-from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-from bert4clickpath_tpu.training import schedules
-from bert4clickpath_tpu.training.train_state import (
+from bert4clickpath.constants import NUM_RESERVED_TOKENS, PAD_ID
+from bert4clickpath.data.chaining import chain_sequences, chained_length
+from bert4clickpath.data.generator import ClickStreamGenerator
+from bert4clickpath.training import schedules
+from bert4clickpath.training.train_state import (
     TrainState,
     make_eval_step,
     make_optimizer,
     make_train_step,
 )
-from bert4clickpath_tpu.training.trainer import Trainer
+from bert4clickpath.training.trainer import Trainer
 
 
 def make_batches(

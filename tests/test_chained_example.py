@@ -1,4 +1,4 @@
-"""Multi-sequence chaining end-to-end (VERDICT r1 item 5): segment bounds
+"""Multi-sequence chaining end-to-end: segment bounds
 pinned against chain_sequences output per the reference arithmetic
 (clickstream_transformer.py:81-94,317-322), and the chained
 segment-routed binary model trains through the gathered slice."""
@@ -24,25 +24,25 @@ _spec.loader.exec_module(_mod)
 BASKET_LEN = _mod.BASKET_LEN
 make_chained_batches = _mod.make_chained_batches
 
-from bert4clickpath_tpu import (
+from bert4clickpath import (
     ClickstreamModel,
     FeatureConfig,
     HeadConfig,
     ModelConfig,
 )
-from bert4clickpath_tpu.constants import (
+from bert4clickpath.constants import (
     CLS_ID,
     LABEL_PAD,
     NUM_RESERVED_TOKENS,
     SEP_ID,
 )
-from bert4clickpath_tpu.data.chaining import (
+from bert4clickpath.data.chaining import (
     chain_sequences,
     chained_length,
     segment_bounds,
 )
-from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-from bert4clickpath_tpu.ops.losses import masked_binary_cross_entropy
+from bert4clickpath.data.generator import ClickStreamGenerator
+from bert4clickpath.ops.losses import masked_binary_cross_entropy
 
 
 def test_segment_bounds_match_chain_sequences():

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bert4clickpath_tpu.constants import LABEL_PAD, NUM_RESERVED_TOKENS
-from bert4clickpath_tpu.ops.chunked_eval import chunked_eval_stats, chunked_scores
-from bert4clickpath_tpu.ops.metrics import ranking_stats
+from bert4clickpath.constants import LABEL_PAD, NUM_RESERVED_TOKENS
+from bert4clickpath.ops.chunked_eval import chunked_eval_stats, chunked_scores
+from bert4clickpath.ops.metrics import ranking_stats
 
 
 def _case(b=3, p=4, d=8, v=256, nv=200, seed=0):
@@ -33,7 +33,7 @@ def test_chunked_matches_dense():
             float(stats[key]), float(want[key]), rtol=1e-5, err_msg=key
         )
     # loss_sum vs dense masked CE
-    from bert4clickpath_tpu.ops.losses import masked_softmax_cross_entropy
+    from bert4clickpath.ops.losses import masked_softmax_cross_entropy
 
     n = float(stats["n"])
     dense_loss = float(masked_softmax_cross_entropy(dense_logits, labels))
@@ -69,7 +69,7 @@ def test_pick_chunk_rows_cap():
     """Big-catalog chunks shrink when the scoring row count is large: the
     scan body holds an (rows, chunk) f32 logits tile (code-review round 4 —
     65536-chunks at a 512x25-row training eval would be a 3.4 GB tile)."""
-    from bert4clickpath_tpu.ops.chunked_eval import pick_chunk
+    from bert4clickpath.ops.chunked_eval import pick_chunk
 
     v = 10_027_008  # 10M-row table padded to the 65536 alignment
     assert pick_chunk(v) == 65536  # serving: rows unknown/small

@@ -2,7 +2,7 @@
 
 import pytest
 
-from bert4clickpath_tpu.utils.cli import parse_spec_args
+from bert4clickpath.utils.cli import parse_spec_args
 
 
 def test_defaults_and_overrides():

@@ -6,7 +6,7 @@ and the token layout [CLS][SEP] items [PAD]... [SEP]."""
 
 import numpy as np
 
-from bert4clickpath_tpu.constants import (
+from bert4clickpath.constants import (
     CLS_ID,
     LABEL_PAD,
     MASK_ID,
@@ -14,15 +14,15 @@ from bert4clickpath_tpu.constants import (
     PAD_ID,
     SEP_ID,
 )
-from bert4clickpath_tpu.data.cloze import (
+from bert4clickpath.data.cloze import (
     ITEM_OFFSET,
     make_eval_batch,
     make_train_batch,
     pad_batch,
     token_length,
 )
-from bert4clickpath_tpu.data.pipeline import ClozeDataset
-from bert4clickpath_tpu.vocab import Vocabulary
+from bert4clickpath.data.pipeline import ClozeDataset
+from bert4clickpath.vocab import Vocabulary
 
 
 def _seqs():
@@ -135,7 +135,7 @@ def test_train_batch_larger_than_dataset_raises():
 
 
 def test_prefetch_to_device_preserves_order():
-    from bert4clickpath_tpu.data.pipeline import prefetch_to_device
+    from bert4clickpath.data.pipeline import prefetch_to_device
 
     vocab = Vocabulary([f"i{k}" for k in range(20)])
     seqs = [np.arange(6, dtype=np.int32)] * 40

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu.constants import CLS_ID, PAD_ID, SEP_ID
-from bert4clickpath_tpu.data import chaining, etl
-from bert4clickpath_tpu.data.generator import ClickStreamGenerator
+from bert4clickpath.constants import CLS_ID, PAD_ID, SEP_ID
+from bert4clickpath.data import chaining, etl
+from bert4clickpath.data.generator import ClickStreamGenerator
 
 
 def test_chained_length_and_bounds():
@@ -105,7 +105,7 @@ def test_beauty_loader_format(tmp_path):
             lines.append(f"u{u} item{(u * 2 + i) % 8}")
     p = tmp_path / "beauty.txt"
     p.write_text("\n".join(lines) + "\n")
-    from bert4clickpath_tpu.data.beauty import load_beauty
+    from bert4clickpath.data.beauty import load_beauty
 
     seqs, vocab = load_beauty(str(p), max_seq_len=4)
     assert len(seqs) == 3
@@ -196,7 +196,7 @@ def test_amazon_json_loader(tmp_path):
 
     import numpy as np
 
-    from bert4clickpath_tpu.data.beauty import load_amazon_json
+    from bert4clickpath.data.beauty import load_amazon_json
 
     recs = [
         # u1: 3 reviews, out of time order in the file
@@ -261,7 +261,7 @@ def test_prepare_data_amazon_json_cli(tmp_path):
         ]
     )
     assert (out / "vocabs" / "item_vocab.txt").exists()
-    from bert4clickpath_tpu.data import etl
+    from bert4clickpath.data import etl
 
     seqs = list(etl.read_packed(str(out / "sequences_*.npz")))
     assert len(seqs) == 3  # u0,u1,u2 all have >=2 reviews
@@ -277,7 +277,7 @@ def test_amazon_json_skips_malformed_records(tmp_path):
     import numpy as np
     import pytest
 
-    from bert4clickpath_tpu.data.beauty import load_amazon_json
+    from bert4clickpath.data.beauty import load_amazon_json
 
     recs = [
         {"reviewerID": "u1", "asin": "a", "unixReviewTime": 100},
@@ -303,7 +303,7 @@ def test_amazon_json_tolerates_malformed_timestamps(tmp_path):
     import json as _json
     import warnings
 
-    from bert4clickpath_tpu.data.beauty import load_amazon_json
+    from bert4clickpath.data.beauty import load_amazon_json
 
     recs = [
         {"reviewerID": "u1", "asin": f"a{i}", "unixReviewTime": 100 + i}

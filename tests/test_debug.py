@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu.utils import debug
+from bert4clickpath.utils import debug
 
 
 def test_checked_raises_on_nan():

@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from bert4clickpath_tpu import TrainConfig
-from bert4clickpath_tpu.training import checkpoint as ckpt_lib
-from bert4clickpath_tpu.training import schedules
-from bert4clickpath_tpu.training.train_state import (
+from bert4clickpath import TrainConfig
+from bert4clickpath.training import checkpoint as ckpt_lib
+from bert4clickpath.training import schedules
+from bert4clickpath.training.train_state import (
     TrainState,
     ema_update,
     eval_params,
@@ -105,11 +105,11 @@ def test_ema_state_checkpoint_roundtrip(tmp_path):
 
 def test_spmd_ema_matches_single_device():
     # one sharded optimizer step with EMA == the single-device recurrence
-    from bert4clickpath_tpu import MeshConfig
-    from bert4clickpath_tpu.parallel import spmd
-    from bert4clickpath_tpu.parallel.mesh import make_mesh
+    from bert4clickpath import MeshConfig
+    from bert4clickpath.parallel import spmd
+    from bert4clickpath.parallel.mesh import make_mesh
 
-    from bert4clickpath_tpu import ClickstreamModel, FeatureConfig, HeadConfig, ModelConfig
+    from bert4clickpath import ClickstreamModel, FeatureConfig, HeadConfig, ModelConfig
 
     ds, vocab, _, _ = _setup()
     rows = spmd.padded_vocab_rows(vocab.model_vocab_size, 2)

@@ -1,249 +1,166 @@
-"""Pallas fused attention kernels vs the jnp reference path (interpret mode on CPU)."""
+"""Attention implementations of the encoder and the choice between them.
+
+``attention_cudnn`` (cuDNN's fused flash attention on the GPU) is checked
+here through ``jax.nn.dot_product_attention(implementation="xla")``: the
+same head layout, bias and odd-length padding, run by XLA on the CPU. The
+cuDNN call itself is compared with the per-head path on the card by
+chip_smoke.py's attention phase."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu.models.encoder import scaled_dot_product_attention
-from bert4clickpath_tpu.ops.masking import padding_bias
+from bert4clickpath.constants import PAD_ID
+from bert4clickpath.models import encoder as E
+from bert4clickpath.ops.masking import NEG_INF, padding_bias
+
+xla_flash = functools.partial(E.attention_cudnn, implementation="xla")
 
 
-def test_model_with_pallas_attention():
-    """attn_impl='pallas' end to end through the encoder (interpret mode)."""
-    from bert4clickpath_tpu import ClickstreamModel, FeatureConfig, HeadConfig, ModelConfig
-    from bert4clickpath_tpu.constants import CLS_ID, SEP_ID
+def _reference(q, k, v, bias, h):
+    """Plain 4-D masked softmax attention in f32."""
+    b, l, d = q.shape
+    split = lambda t: jnp.transpose(t.reshape(b, l, h, d // h), (0, 2, 1, 3))  # noqa: E731
+    s = jnp.einsum("bhqd,bhkd->bhqk", split(q), split(k)) / np.sqrt(d // h)
+    if bias is not None:
+        s = s + bias
+    out = jnp.einsum("bhqk,bhkd->bhqd", jax.nn.softmax(s, axis=-1), split(v))
+    return jnp.transpose(out, (0, 2, 1, 3)).reshape(b, l, d)
+
+
+def _inputs(b=3, l=12, h=2, dh=8, seed=5, pad_frac=0.25):
+    rng = np.random.default_rng(seed)
+    q, k, v = (jnp.asarray(rng.normal(size=(b, l, h * dh)), jnp.float32) for _ in range(3))
+    bias = np.where(rng.random((b, 1, 1, l)) < pad_frac, NEG_INF, 0.0).astype(np.float32)
+    return q, k, v, jnp.asarray(bias)
+
+
+@pytest.mark.parametrize("l,h", [(16, 2), (17, 2), (53, 4), (8, 1)])
+def test_flash_layout_matches_reference(l, h):
+    """Even and odd lengths (odd ones take the padded key/query path)."""
+    q, k, v, bias = _inputs(l=l, h=h)
+    np.testing.assert_allclose(
+        np.asarray(xla_flash(q, k, v, bias, h)), np.asarray(_reference(q, k, v, bias, h)),
+        atol=1e-5,
+    )
+
+
+@pytest.mark.parametrize("l", [16, 17])
+def test_per_head_matches_reference(l):
+    q, k, v, bias = _inputs(l=l, h=4, dh=4)
+    np.testing.assert_allclose(
+        np.asarray(E.attention_per_head(q, k, v, bias, 4)),
+        np.asarray(_reference(q, k, v, bias, 4)), atol=1e-5,
+    )
+
+
+def test_flash_grads_match_per_head():
+    q, k, v, bias = _inputs(l=13)
+
+    def loss(fn, q, k, v):
+        return jnp.sum(fn(q, k, v, bias, 2) ** 2)
+
+    got = jax.grad(functools.partial(loss, xla_flash), argnums=(0, 1, 2))(q, k, v)
+    want = jax.grad(functools.partial(loss, E.attention_per_head), argnums=(0, 1, 2))(q, k, v)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
+def test_fully_padded_rows_stay_finite():
+    """A session that is all padding gets a zero bias from padding_bias, so
+    both paths attend over its scores alike: finite, equal outputs and
+    gradients, odd length included."""
+    q, k, v, _ = _inputs(l=11, pad_frac=0.0)
+    tokens = np.full((3, 11), PAD_ID + 5, np.int32)
+    tokens[0] = PAD_ID
+    tokens[1, 6:] = PAD_ID
+    bias = padding_bias(jnp.asarray(tokens))
+
+    def loss(fn, q, k, v):
+        return jnp.sum(jnp.sin(fn(q, k, v, bias, 2)))
+
+    got = xla_flash(q, k, v, bias, 2)
+    assert bool(jnp.all(jnp.isfinite(got)))
+    np.testing.assert_allclose(
+        np.asarray(got), np.asarray(E.attention_per_head(q, k, v, bias, 2)), atol=1e-5
+    )
+    g_got = jax.grad(functools.partial(loss, xla_flash), argnums=(0, 1, 2))(q, k, v)
+    g_want = jax.grad(functools.partial(loss, E.attention_per_head), argnums=(0, 1, 2))(q, k, v)
+    for a, w in zip(g_got, g_want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
+def test_no_bias_and_bf16():
+    q, k, v, _ = _inputs(l=10)
+    np.testing.assert_allclose(
+        np.asarray(xla_flash(q, k, v, None, 2)), np.asarray(_reference(q, k, v, None, 2)),
+        atol=1e-5,
+    )
+    qb, kb, vb = (t.astype(jnp.bfloat16) for t in (q, k, v))
+    out = xla_flash(qb, kb, vb, None, 2)
+    assert out.dtype == jnp.bfloat16 and out.shape == q.shape
+    np.testing.assert_allclose(
+        np.asarray(out, np.float32), np.asarray(_reference(q, k, v, None, 2)), atol=5e-2
+    )
+
+
+def test_model_with_cudnn_attention():
+    """The model traced with the cuDNN wrapper (its call run by XLA here)
+    equals the per-head path, end to end."""
+    from bert4clickpath import ClickstreamModel, FeatureConfig, HeadConfig, ModelConfig
+    from bert4clickpath.constants import CLS_ID, SEP_ID
 
     cfg = ModelConfig(
-        features={"items": FeatureConfig(51, 16)},
-        num_layers=1,
-        num_heads=2,
-        ffn_dim=32,
-        max_len=16,
-        head=HeadConfig("tied_softmax"),
-        max_masked=4,
+        features={"items": FeatureConfig(51, 16)}, num_layers=1, num_heads=2,
+        ffn_dim=32, max_len=15, head=HeadConfig("tied_softmax"), max_masked=4,
     )
     rng = np.random.default_rng(0)
-    tokens = rng.integers(10, 50, size=(2, 16)).astype(np.int32)
-    tokens[:, 0] = CLS_ID
-    tokens[:, 1] = SEP_ID
-    tokens[:, -1] = SEP_ID
+    tokens = rng.integers(10, 50, size=(2, 15)).astype(np.int32)
+    tokens[:, 0], tokens[:, 1], tokens[:, -1] = CLS_ID, SEP_ID, SEP_ID
+    tokens[1, 9:14] = PAD_ID
     feats = {"items": jnp.asarray(tokens)}
     pos = jnp.asarray(np.tile(np.array([2, 3, 4, 5], np.int32), (2, 1)))
-    ref_model = ClickstreamModel(cfg, attn_impl="xla")
-    pl_model = ClickstreamModel(cfg, attn_impl="pallas")
-    params = ref_model.init(jax.random.PRNGKey(0), feats, pos)
-    a = ref_model.apply(params, feats, pos)
-    b = pl_model.apply(params, feats, pos)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4)
-
-
-def test_attention_blhd_matches_bhld():
-    from bert4clickpath_tpu.models.encoder import attention_blhd
-
-    rng = np.random.default_rng(3)
-    b, h, l, d = 2, 4, 16, 8
-    q, k, v = (rng.normal(size=(b, h, l, d)).astype(np.float32) for _ in range(3))
-    bias = np.where(rng.random((b, 1, 1, l)) < 0.2, -1e9, 0.0).astype(np.float32)
-    want = scaled_dot_product_attention(q, k, v, bias)
-    t = lambda u: jnp.transpose(u, (0, 2, 1, 3))
-    got = t(attention_blhd(t(q), t(k), t(v), bias))
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-5)
-
-
-class TestFusedMHA:
-    def _inputs(self, b=3, l=12, h=2, dh=8, seed=5):
-        rng = np.random.default_rng(seed)
-        q, k, v = (
-            rng.normal(size=(b, l, h * dh)).astype(np.float32) for _ in range(3)
-        )
-        bias = np.where(rng.random((b, 1, 1, l)) < 0.25, -1e9, 0.0).astype(
-            np.float32
-        )
-        return jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias)
-
-    def _oracle(self, q, k, v, bias, h):
-        from bert4clickpath_tpu.models.encoder import attention_blhd
-
-        b, l, d = q.shape
-        split = lambda t: t.reshape(b, l, h, d // h)
-        return attention_blhd(split(q), split(k), split(v), bias).reshape(b, l, d)
-
-    def test_forward_matches_oracle(self):
-        from bert4clickpath_tpu.ops.pallas.attention import fused_mha
-
-        q, k, v, bias = self._inputs()
-        got = fused_mha(q, k, v, bias, 2)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(self._oracle(q, k, v, bias, 2)), atol=1e-5
-        )
-
-    def test_grads_match_oracle(self):
-        from bert4clickpath_tpu.ops.pallas.attention import fused_mha
-
-        q, k, v, bias = self._inputs()
-        w = jnp.asarray(
-            np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
-        )
-
-        def loss_kernel(q, k, v):
-            return jnp.sum(fused_mha(q, k, v, bias, 2) * w)
-
-        def loss_oracle(q, k, v):
-            return jnp.sum(self._oracle(q, k, v, bias, 2) * w)
-
-        gk = jax.grad(loss_kernel, argnums=(0, 1, 2))(q, k, v)
-        go = jax.grad(loss_oracle, argnums=(0, 1, 2))(q, k, v)
-        for a, b_ in zip(gk, go):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b_), atol=1e-4)
-
-    def test_supported_bounds(self):
-        from bert4clickpath_tpu.ops.pallas.attention import fused_mha_supported
-
-        assert fused_mha_supported(53, 256, 4)
-        assert not fused_mha_supported(4096, 256, 4)
-
-
-def test_attention_per_head_matches_bhld():
-    from bert4clickpath_tpu.models.encoder import attention_per_head
-
-    rng = np.random.default_rng(11)
-    b, h, l, dh = 2, 4, 16, 8
-    qf, kf, vf = (rng.normal(size=(b, l, h * dh)).astype(np.float32) for _ in range(3))
-    bias = np.where(rng.random((b, 1, 1, l)) < 0.2, -1e9, 0.0).astype(np.float32)
-    split = lambda t: jnp.transpose(
-        jnp.reshape(jnp.asarray(t), (b, l, h, dh)), (0, 2, 1, 3)
-    )
-    want = jnp.transpose(
-        scaled_dot_product_attention(split(qf), split(kf), split(vf), bias),
-        (0, 2, 1, 3),
-    ).reshape(b, l, h * dh)
-    got = attention_per_head(jnp.asarray(qf), jnp.asarray(kf), jnp.asarray(vf),
-                             jnp.asarray(bias), h)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-5)
-
-
-def test_attn_impl_auto_switches_on_length():
-    """auto == xla below FLASH_ATTN_MIN_LEN (bitwise: same branch), and the
-    pallas branch above it (values match the dense oracle)."""
-    from bert4clickpath_tpu.models.encoder import (
-        FLASH_ATTN_MIN_LEN,
-        MultiHeadAttention,
+    model = ClickstreamModel(cfg)
+    params = model.init(jax.random.PRNGKey(0), feats, pos)
+    with E.forced_attention(xla_flash):
+        got = model.apply(params, feats, pos)
+    np.testing.assert_allclose(
+        np.asarray(got), np.asarray(model.apply(params, feats, pos)), rtol=1e-4, atol=1e-4,
     )
 
-    rng = np.random.default_rng(0)
-    # 16: below the crossover -> xla; 256: whole-row win range -> pallas
-    # (past the whole-row VMEM bound the blockwise (B, L, D) kernel takes
-    # over — also measured faster, so auto stays pallas there)
-    for l, resolves_pallas in ((16, False), (FLASH_ATTN_MIN_LEN, True)):
-        x = jnp.asarray(rng.normal(size=(2, l, 32)), jnp.float32)
-        bias = padding_bias(jnp.ones((2, l), jnp.int32))
-        auto = MultiHeadAttention(32, 2, attn_impl="auto")
-        params = auto.init(jax.random.PRNGKey(0), x, bias)
-        got = auto.apply(params, x, bias)
-        want_impl = "pallas" if resolves_pallas else "xla"
-        want = MultiHeadAttention(32, 2, attn_impl=want_impl).apply(
-            params, x, bias
-        )
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-        # Branch values can coincide bitwise at these shapes (single-block
-        # online softmax == dense softmax), so prove WHICH branch auto took
-        # structurally: the traced program contains a pallas_call iff the
-        # pallas branch was selected (ADVICE round 4: the old closeness
-        # assert verified selection only one-way).
-        jaxpr = str(jax.make_jaxpr(lambda x: auto.apply(params, x, bias))(x))
-        assert ("pallas_call" in jaxpr) == resolves_pallas
+
+@pytest.mark.parametrize("backend,dtype,head_dim,want", [
+    ("gpu", jnp.bfloat16, 64, "cudnn"),
+    ("gpu", jnp.float16, 128, "cudnn"),
+    ("gpu", jnp.float32, 64, "per_head"),  # cuDNN's flash kernels take 16-bit operands
+    ("gpu", jnp.bfloat16, 12, "per_head"),  # head width not a multiple of 8
+    ("gpu", jnp.bfloat16, 256, "per_head"),
+    ("cpu", jnp.bfloat16, 64, "per_head"),
+])
+def test_pick_attention(monkeypatch, backend, dtype, head_dim, want):
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    fn = E.pick_attention(dtype, head_dim)
+    assert fn is {"cudnn": E.attention_cudnn, "per_head": E.attention_per_head}[want]
 
 
-def test_auto_rejected_where_pallas_is():
-    from bert4clickpath_tpu.parallel.support import validate_tier
-
-    validate_tier("dp", "tied_softmax", attn_impl="auto")  # composes
-    with pytest.raises(ValueError, match="attn:pallas"):
-        validate_tier("tp", "tied_softmax", attn_impl="auto")
-
-
-class TestBlockwiseMHA:
-    """(B, L, D) blockwise kernel vs the dense oracle (interpret mode)."""
-
-    def _case(self, b=2, l=48, d=32, h=2, pad=True):
-        # l=48 -> block 16 -> 3x3 blocks: true multi-block online softmax
-        rng = np.random.default_rng(3)
-        q, k, v = (
-            jnp.asarray(rng.normal(size=(b, l, d)), jnp.float32) for _ in range(3)
-        )
-        tokens = jnp.ones((b, l), jnp.int32)
-        if pad:
-            tokens = tokens.at[:, l - 5 :].set(0)  # padding tail
-        return q, k, v, padding_bias(tokens)
-
-    def _oracle(self, q, k, v, bias, h):
-        from bert4clickpath_tpu.models.encoder import attention_per_head
-
-        return attention_per_head(q, k, v, bias, h)
-
-    def test_forward_matches_oracle(self):
-        from bert4clickpath_tpu.ops.pallas.attention import blockwise_mha
-
-        q, k, v, bias = self._case()
-        got = blockwise_mha(q, k, v, bias, 2)
-        want = self._oracle(q, k, v, bias, 2)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-5)
-
-    def test_grads_match_oracle(self):
-        from bert4clickpath_tpu.ops.pallas.attention import blockwise_mha
-
-        q, k, v, bias = self._case()
-
-        def f(fn):
-            def loss(q, k, v):
-                o = fn(q, k, v, bias, 2)
-                return jnp.sum(o * jnp.cos(o.astype(jnp.float32)))
-
-            return jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
-
-        got = f(blockwise_mha)
-        want = f(lambda q, k, v, b, h: self._oracle(q, k, v, b, h))
-        for g, w, name in zip(got, want, "qkv"):
-            np.testing.assert_allclose(
-                np.asarray(g), np.asarray(w), rtol=5e-4, atol=5e-4,
-                err_msg=f"d{name}",
-            )
-
-    def test_single_block_and_odd_heads(self):
-        from bert4clickpath_tpu.ops.pallas.attention import blockwise_mha
-
-        q, k, v, bias = self._case(b=1, l=16, d=48, h=4, pad=False)
-        got = blockwise_mha(q, k, v, bias, 4)
-        want = self._oracle(q, k, v, bias, 4)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-5)
+def test_forced_attention_overrides_and_restores():
+    with E.forced_attention(xla_flash):
+        assert E.pick_attention(jnp.float32, 4) is xla_flash
+        with E.forced_attention(E.attention_per_head):
+            assert E.pick_attention(jnp.bfloat16, 64) is E.attention_per_head
+        assert E.pick_attention(jnp.float32, 4) is xla_flash
+    assert E.pick_attention(jnp.float32, 4) is E.attention_per_head
 
 
-    def test_multiblock_forward_and_grads(self, monkeypatch):
-        """Force tiny (Tq, Tk) so the online-softmax recurrence and the
-        accumulating backward grids run multi-block (the auto chooser picks
-        a single block at test sizes)."""
-        import bert4clickpath_tpu.ops.pallas.attention as A
-
-        monkeypatch.setattr(A, "_bmha_blocks", lambda l, d, itemsize=2: (16, 16))
-        q, k, v, bias = self._case()  # l=48 -> 3x3 blocks
-
-        def f(fn):
-            def loss(q, k, v):
-                o = fn(q, k, v, bias, 2)
-                return jnp.sum(o * jnp.sin(o.astype(jnp.float32)))
-
-            return jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
-
-        got_fwd = A.blockwise_mha(q, k, v, bias, 2)
-        np.testing.assert_allclose(
-            np.asarray(got_fwd), np.asarray(self._oracle(q, k, v, bias, 2)),
-            rtol=2e-5, atol=2e-5,
-        )
-        got = f(A.blockwise_mha)
-        want = f(lambda q, k, v, b, h: self._oracle(q, k, v, b, h))
-        for g, w, name in zip(got, want, "qkv"):
-            np.testing.assert_allclose(
-                np.asarray(g), np.asarray(w), rtol=5e-4, atol=5e-4,
-                err_msg=f"d{name}",
-            )
+def test_padding_bias_blinds_pads_of_live_sessions_only():
+    tokens = np.full((3, 6), PAD_ID + 9, np.int32)
+    tokens[0] = PAD_ID
+    tokens[1, 4:] = PAD_ID
+    bias = np.asarray(padding_bias(jnp.asarray(tokens)))
+    assert bias.shape == (3, 1, 1, 6) and bias.dtype == np.float32
+    np.testing.assert_array_equal(bias[0], 0.0)
+    np.testing.assert_array_equal(bias[1, 0, 0], [0, 0, 0, 0, NEG_INF, NEG_INF])
+    np.testing.assert_array_equal(bias[2], 0.0)

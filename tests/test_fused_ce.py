@@ -1,13 +1,14 @@
-"""Fused Pallas CE kernel vs the dense oracle (interpret mode on CPU)."""
+"""Fused CE vs the dense oracle: the public ops on the CPU run the chunked
+scan; the GPU kernels are checked in interpret mode (test_fused_ce_triton.py)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu.constants import LABEL_PAD, NUM_RESERVED_TOKENS
-from bert4clickpath_tpu.ops.losses import masked_softmax_cross_entropy
-from bert4clickpath_tpu.ops.pallas.fused_ce import (
+from bert4clickpath.constants import LABEL_PAD, NUM_RESERVED_TOKENS
+from bert4clickpath.ops.losses import masked_softmax_cross_entropy
+from bert4clickpath.ops.fused_ce import (
     fused_masked_softmax_cross_entropy,
     fused_softmax_ce,
 )
@@ -72,86 +73,76 @@ def test_gradients_match_dense():
 
 
 def test_chunked_backward_matches_dense(monkeypatch):
-    """N past the merged backward's VMEM scratch budget: _bwd_auto must run
-    the merged kernel over row chunks (uneven last chunk included) and sum
-    dw/db exactly — the B=512 cliff fix (KERNELS.md round 5). Budget is
-    shrunk so the n=24 test shape splits into a 16-row and an 8-row chunk."""
-    from bert4clickpath_tpu.ops.pallas import fused_ce as F
+    """A table larger than one scan tile: the forward and backward take
+    several vocab chunks (the valid window crossing chunk boundaries) and
+    must still match the dense oracle exactly — the path every catalog
+    too large for one (N, V) tile runs. The tile budget is shrunk so the
+    v=512 test table splits into four 128-row chunks."""
+    from bert4clickpath.ops import fused_ce as F
 
-    x, table, labels = _case(n=24)
-    orig = F._bwd_auto
-    calls = {"n": 0}
-
-    def tiny_budget(*args, **kwargs):
-        calls["n"] += 1
-        kwargs["vmem_budget"] = 16 * 8 * 4  # -> 16-row chunks: 16 + uneven 8
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(F, "_bwd_auto", tiny_budget)
+    x, table, labels = _case(n=24, v=512, num_valid=400)
+    monkeypatch.setattr(F, "_XLA_TILE_BYTES", 24 * 128 * 4)
+    assert F._xla_chunk(512, 24) == 128
 
     def fused_loss(x, t):
-        nll = fused_softmax_ce(x, t, labels, NUM_RESERVED_TOKENS, 40)
+        nll = fused_softmax_ce(x, t, labels, NUM_RESERVED_TOKENS, 400)
         return jnp.sum(nll) / jnp.maximum(
             jnp.sum((labels != LABEL_PAD).astype(jnp.float32)), 1.0
         )
 
     def dense_loss(x, t):
-        nll = _dense_nll(x, t, labels, 40)
+        nll = _dense_nll(x, t, labels, 400)
         return jnp.sum(nll) / jnp.maximum(
             jnp.sum((labels != LABEL_PAD).astype(jnp.float32)), 1.0
         )
 
-    (gx_f, gt_f) = jax.grad(fused_loss, argnums=(0, 1))(x, table)
-    (gx_d, gt_d) = jax.grad(dense_loss, argnums=(0, 1))(x, table)
-    assert calls["n"] == 1
+    (lf, (gx_f, gt_f)) = jax.value_and_grad(fused_loss, argnums=(0, 1))(x, table)
+    (ld, (gx_d, gt_d)) = jax.value_and_grad(dense_loss, argnums=(0, 1))(x, table)
+    np.testing.assert_allclose(float(lf), float(ld), rtol=1e-5)
     np.testing.assert_allclose(np.asarray(gx_f), np.asarray(gx_d), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(np.asarray(gt_f), np.asarray(gt_d), rtol=1e-4, atol=1e-6)
 
 
-def test_bwd_chunk_rows_keeps_mxu_tiles():
-    """The chunk size must stay a multiple of the largest _row_tile candidate
-    it can hold — an 8-aligned-only chunk (2728 at d=384) would degrade every
-    chunk to 8-row MXU blocks."""
-    from bert4clickpath_tpu.ops.pallas.fused_ce import _bwd_chunk_rows, _row_tile
+@pytest.mark.parametrize(
+    "v,n,budget,want",
+    [
+        (64, 16, 256 << 20, 64),  # tiny table: one chunk
+        (55_296, 2_560, 256 << 20, 18_432),  # Beauty: 3 chunks under 256 MB
+        (55_296, 2_560, 1 << 40, 55_296),  # budget allows the whole table
+        (512, 24, 24 * 128 * 4, 128),
+    ],
+)
+def test_xla_chunk_divides_and_fits(monkeypatch, v, n, budget, want):
+    """The scan chunk divides the table, is a multiple of 128 unless it is
+    the whole table, and keeps the (n, chunk) f32 tile within budget."""
+    from bert4clickpath.ops import fused_ce as F
 
-    B = 4 * 1024 * 1024
-    assert _bwd_chunk_rows(256, B) == 4096 and _row_tile(4096) == 512
-    assert _bwd_chunk_rows(384, B) == 2560 and _row_tile(2560) == 512
-    assert _bwd_chunk_rows(2048, B) == 512
-    assert _bwd_chunk_rows(4096, B) == 256  # below 512: largest fitting tile
-    assert _bwd_chunk_rows(8, 16 * 8 * 4) == 16  # the tiny-budget test shape
-    assert _bwd_chunk_rows(8, 7 * 8 * 4) < 8  # degenerate -> two-pass path
+    monkeypatch.setattr(F, "_XLA_TILE_BYTES", budget)
+    c = F._xla_chunk(v, n)
+    assert c == want and v % c == 0 and n * c * 4 <= budget
 
 
 def test_chunked_backward_bf16_accumulates_in_f32(monkeypatch):
-    """Chunked dw must round to the bf16 table dtype ONCE (like the single
-    merged kernel), not once per chunk: summing in f32 keeps the chunked and
-    unchunked paths' gradients close."""
-    from bert4clickpath_tpu.ops.pallas import fused_ce as F
+    """With a bf16 operand dtype, dW accumulates in f32 and rounds to the
+    table dtype once: several scan chunks and one whole-table chunk give
+    the same gradient, and a bf16 table gets a bf16 gradient."""
+    from bert4clickpath.ops import fused_ce as F
 
-    x, table, labels = _case(n=24)
+    x, table, labels = _case(n=24, v=512, num_valid=400)
     x, table = x.astype(jnp.bfloat16), table.astype(jnp.bfloat16)
 
     def grads(budget):
-        orig = F._bwd_auto
-
-        def with_budget(*args, **kwargs):
-            kwargs["vmem_budget"] = budget
-            return orig(*args, **kwargs)
-
-        monkeypatch.setattr(F, "_bwd_auto", with_budget)
+        monkeypatch.setattr(F, "_XLA_TILE_BYTES", budget)
 
         def loss(t):
-            nll = fused_softmax_ce(x, t, labels, NUM_RESERVED_TOKENS, 40)
-            return jnp.sum(nll)
+            return jnp.sum(fused_softmax_ce(x, t, labels, NUM_RESERVED_TOKENS, 400))
 
         g = jax.grad(loss)(table)
-        monkeypatch.setattr(F, "_bwd_auto", orig)
         assert g.dtype == jnp.bfloat16
         return np.asarray(g, np.float32)
 
-    g_one = grads(24 * 8 * 4)  # single merged call
-    g_chunked = grads(8 * 8 * 4)  # three 8-row chunks
+    g_one = grads(256 << 20)  # one chunk
+    g_chunked = grads(24 * 128 * 4)  # four 128-row chunks
     np.testing.assert_allclose(g_chunked, g_one, rtol=1e-2, atol=1e-3)
 
 
@@ -191,9 +182,9 @@ def test_sharded_fused_matches_dense():
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from bert4clickpath_tpu.config import MeshConfig
-    from bert4clickpath_tpu.ops.pallas.fused_ce import sharded_fused_softmax_ce
-    from bert4clickpath_tpu.parallel.mesh import make_mesh
+    from bert4clickpath.config import MeshConfig
+    from bert4clickpath.ops.fused_ce import sharded_fused_softmax_ce
+    from bert4clickpath.parallel.mesh import make_mesh
 
     mesh = make_mesh(MeshConfig(data=2, model=4))
     rng = np.random.default_rng(5)
@@ -228,7 +219,7 @@ def test_sharded_fused_matches_dense():
         logits = jnp.einsum(
             "bpd,vd->bpv", x, t[NUM_RESERVED_TOKENS : NUM_RESERVED_TOKENS + nv]
         )
-        from bert4clickpath_tpu.ops.losses import masked_softmax_cross_entropy
+        from bert4clickpath.ops.losses import masked_softmax_cross_entropy
 
         return masked_softmax_cross_entropy(logits, labels)
 
@@ -254,31 +245,6 @@ def test_oov_label_fails_loudly():
     )
 
 
-def test_malformed_tile_env_ignored(monkeypatch):
-    monkeypatch.setenv("B4CP_CE_VOCAB_TILE", "not-an-int")
-    monkeypatch.setenv("B4CP_CE_ROW_TILE", "1e3")
-    x, table, labels = _case()
-    with pytest.warns(UserWarning, match="malformed"):
-        nll = fused_softmax_ce(x, table, labels, NUM_RESERVED_TOKENS, 40)
-    want = _dense_nll(x, table, labels, 40)
-    np.testing.assert_allclose(np.asarray(nll), np.asarray(want), rtol=1e-5, atol=1e-6)
-
-
-def test_vocab_tile_override_respects_backward_vmem_budget(monkeypatch):
-    """Tv=2048 at D=256 is Mosaic-infeasible on v5e (the merged backward's
-    adjoint tile + f32 w/dw double buffers exceed the 16MB scoped-vmem
-    limit — measured, round 4); the env override must fall back to the
-    default rather than hand Mosaic an uncompilable grid. Tv=1024 (the
-    verified-good config) must be honored."""
-    from bert4clickpath_tpu.ops.pallas.fused_ce import _vocab_tile
-
-    monkeypatch.setenv("B4CP_CE_VOCAB_TILE", "2048")
-    assert _vocab_tile(55_296, 256) == 1024  # rejected -> default
-    assert _vocab_tile(55_296, 64) == 2048  # narrow D: fits, honored
-    monkeypatch.setenv("B4CP_CE_VOCAB_TILE", "1024")
-    assert _vocab_tile(55_296, 256) == 1024
-
-
 def test_sharded_oov_label_fails_loudly():
     """Sharded path: an OOV label (>= num_valid) must blind to -1e30 and
     explode the loss, same as the single-chip path."""
@@ -287,9 +253,9 @@ def test_sharded_oov_label_fails_loudly():
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from bert4clickpath_tpu.config import MeshConfig
-    from bert4clickpath_tpu.ops.pallas.fused_ce import sharded_fused_softmax_ce
-    from bert4clickpath_tpu.parallel.mesh import make_mesh
+    from bert4clickpath.config import MeshConfig
+    from bert4clickpath.ops.fused_ce import sharded_fused_softmax_ce
+    from bert4clickpath.parallel.mesh import make_mesh
 
     mesh = make_mesh(MeshConfig(data=2, model=4))
     rng = np.random.default_rng(7)

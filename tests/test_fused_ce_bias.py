@@ -1,9 +1,9 @@
-"""Bias-carrying fused CE (ops/pallas/fused_ce.fused_softmax_ce_bias) vs the
+"""Bias-carrying fused CE (ops/fused_ce.fused_softmax_ce_bias) vs the
 dense oracle, and the fused-MLP-head train/eval paths vs the dense logits
 paths.
 
 The bias variant serves the reference's parity MLP softmax head (its final
-Dense(V) has a bias, head.py:29-47 via nn.Dense) and tied heads with a free
+Dense(V) has a bias, head.py:29-47) and tied heads with a free
 per-item output bias — both previously dense-logits-only.
 """
 
@@ -11,22 +11,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bert4clickpath_tpu.config import FeatureConfig, HeadConfig, ModelConfig
-from bert4clickpath_tpu.constants import LABEL_PAD
-from bert4clickpath_tpu.models.model import ClickstreamModel
-from bert4clickpath_tpu.ops.pallas.fused_ce import (
-    _bwd,
-    _bwd_fused,
+from bert4clickpath.config import FeatureConfig, HeadConfig, ModelConfig
+from bert4clickpath.constants import LABEL_PAD
+from bert4clickpath.models.model import ClickstreamModel
+from bert4clickpath.ops.fused_ce import (
     _labels_model,
+    _xla_bwd,
     fused_softmax_ce_bias,
 )
-from bert4clickpath_tpu.training.train_state import (
+from bert4clickpath.training.train_state import (
     TrainState,
     make_eval_step,
     make_optimizer,
     make_train_step,
 )
-from bert4clickpath_tpu.training.schedules import constant
+from bert4clickpath.training.schedules import constant
 
 
 def _case(n=16, d=8, v=64, row_offset=10, num_valid=40, seed=0):
@@ -88,20 +87,23 @@ def test_gradients_match_dense():
     np.testing.assert_array_equal(np.asarray(gf[2][off + nv :]), 0.0)
 
 
-def test_two_pass_backward_matches_merged():
-    # small shapes always select the merged backward; exercise the two-pass
-    # bias path directly against it
-    x, table, bias, labels, off, nv = _case()
+def test_chunked_bias_backward_matches_single_chunk(monkeypatch):
+    """The bias backward over several scan chunks (db scattered per chunk)
+    equals the one-chunk backward: chunking must not change dx, dW or db."""
+    from bert4clickpath.ops import fused_ce as F
+
+    x, table, bias, labels, off, nv = _case(n=24, v=512, num_valid=400)
     lab = _labels_model(labels, off)
-    brow = bias.reshape(1, -1)
-    logits = x @ table.T + brow
+    logits = x @ table.T + bias
     rows = jnp.arange(table.shape[0])
     blinded = jnp.where((rows >= off) & (rows < off + nv), logits, -1e30)
     logz = jax.nn.logsumexp(blinded, axis=-1)
     dnll = (labels != LABEL_PAD).astype(jnp.float32)
-    merged = _bwd_fused(x, table, lab, logz, dnll, off, nv, bias=brow)
-    two_pass = _bwd(x, table, lab, logz, dnll, off, nv, bias=brow)
-    for got, want, name in zip(two_pass, merged, ("dx", "dw", "db")):
+    lo, hi = jnp.int32(off), jnp.int32(off + nv)
+    one = _xla_bwd(x, table, lab, logz, dnll, lo, hi, bias)
+    monkeypatch.setattr(F, "_XLA_TILE_BYTES", 24 * 128 * 4)
+    chunked = _xla_bwd(x, table, lab, logz, dnll, lo, hi, bias)
+    for got, want, name in zip(chunked, one, ("dx", "dw", "db")):
         np.testing.assert_allclose(
             np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-6, err_msg=name
         )

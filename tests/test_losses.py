@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu.ops.losses import (
+from bert4clickpath.ops.losses import (
     masked_binary_cross_entropy,
     masked_mean,
     masked_softmax_cross_entropy,
@@ -107,8 +107,8 @@ def test_sampled_softmax_approximates_dense_ce():
     import jax.numpy as jnp
     import numpy as np
 
-    from bert4clickpath_tpu.constants import LABEL_PAD
-    from bert4clickpath_tpu.ops.losses import sampled_softmax_ce
+    from bert4clickpath.constants import LABEL_PAD
+    from bert4clickpath.ops.losses import sampled_softmax_ce
 
     rng = np.random.default_rng(0)
     V, D, N, off = 64, 16, 32, 10
@@ -148,18 +148,18 @@ def test_sampled_softmax_trains_tied_model():
     import jax.numpy as jnp
     import numpy as np
 
-    from bert4clickpath_tpu import (
+    from bert4clickpath import (
         ClickstreamModel,
         FeatureConfig,
         HeadConfig,
         ModelConfig,
         TrainConfig,
     )
-    from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-    from bert4clickpath_tpu.data.pipeline import ClozeDataset
-    from bert4clickpath_tpu.ops.losses import masked_softmax_cross_entropy
-    from bert4clickpath_tpu.training import schedules
-    from bert4clickpath_tpu.training.train_state import (
+    from bert4clickpath.data.generator import ClickStreamGenerator
+    from bert4clickpath.data.pipeline import ClozeDataset
+    from bert4clickpath.ops.losses import masked_softmax_cross_entropy
+    from bert4clickpath.training import schedules
+    from bert4clickpath.training.train_state import (
         TrainState,
         make_optimizer,
         make_train_step,

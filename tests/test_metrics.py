@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu.ops import metrics as M
+from bert4clickpath.ops import metrics as M
 
 
 def test_ndcg_matches_reference_example():
@@ -88,8 +88,8 @@ def test_masked_metric_generic_wrapper():
     sample_weight)."""
     import jax.numpy as jnp
 
-    from bert4clickpath_tpu.constants import LABEL_PAD
-    from bert4clickpath_tpu.ops.metrics import finalize, masked_metric, merge
+    from bert4clickpath.constants import LABEL_PAD
+    from bert4clickpath.ops.metrics import finalize, masked_metric, merge
 
     top1 = masked_metric(
         lambda lg, lb: (jnp.argmax(lg, -1) == lb).astype(jnp.float32), "top1"
@@ -119,8 +119,8 @@ def test_auc_streaming_matches_sklearn():
     and excludes pad positions."""
     import jax.numpy as jnp
 
-    from bert4clickpath_tpu.constants import LABEL_PAD
-    from bert4clickpath_tpu.ops.metrics import auc_stats, finalize, merge
+    from bert4clickpath.constants import LABEL_PAD
+    from bert4clickpath.ops.metrics import auc_stats, finalize, merge
 
     sklearn = pytest.importorskip("sklearn.metrics")
     rng = np.random.default_rng(0)

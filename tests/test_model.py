@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu import ClickstreamModel, FeatureConfig, HeadConfig, ModelConfig
-from bert4clickpath_tpu.constants import CLS_ID, NUM_RESERVED_TOKENS, PAD_ID, SEP_ID
+from bert4clickpath import ClickstreamModel, FeatureConfig, HeadConfig, ModelConfig
+from bert4clickpath.constants import CLS_ID, NUM_RESERVED_TOKENS, PAD_ID, SEP_ID
 
 
 def _cfg(**kw):
@@ -267,52 +267,6 @@ def test_tied_multifeature_projection():
     assert logits.shape == (3, 4, 40)
 
 
-def test_embed_impl_pallas_matches_xla():
-    """embed_impl='pallas' (fused gather+scale+pos kernel) must match the
-    XLA embed path in forward and gradients — interpret mode on CPU."""
-    # b*l = 4*24 = 96 -> tile 32
-    cfg = _cfg(max_len=24, positional="learned")
-    feats, positions = _batch(b=4, l=24)
-    m_xla = ClickstreamModel(cfg, embed_impl="xla")
-    m_pl = ClickstreamModel(cfg, embed_impl="pallas")
-    params = m_xla.init({"params": jax.random.PRNGKey(0)}, feats, positions)
-
-    want = m_xla.apply(params, feats, positions)
-    got = m_pl.apply(params, feats, positions)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
-
-    def loss(m):
-        def f(p):
-            out = m.apply(p, feats, positions)
-            return jnp.sum(out * out)
-        return jax.grad(f)(params)
-
-    g_want, g_got = loss(m_xla), loss(m_pl)
-    jax.tree.map(
-        lambda a, b: np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-5
-        ),
-        g_got,
-        g_want,
-    )
-
-
-def test_embed_impl_pallas_falls_back_multifeature():
-    """Multi-feature models silently use the XLA concat path."""
-    cfg = _cfg(
-        features={
-            "items": FeatureConfig(51, 12),
-            "actions": FeatureConfig(15, 4),
-        },
-    )
-    feats, positions = _batch(b=2, l=23)
-    feats["actions"] = jnp.minimum(feats["items"], 14)
-    model = ClickstreamModel(cfg, embed_impl="pallas")
-    params = model.init({"params": jax.random.PRNGKey(0)}, feats, positions)
-    out = model.apply(params, feats, positions)
-    assert out.shape[-1] == 40
-
-
 def test_factorized_input_projection():
     """encoder_dim (ALBERT-style factorized input): a 16-dim item table feeds
     a 32-wide encoder through input_proj; the tied head's width-matching
@@ -357,7 +311,7 @@ def test_tied_bias_output():
     """tied_bias adds a free per-item logit bias (BERT MLM-decoder style):
     zero-init leaves logits unchanged; a bumped bias shifts exactly that
     item's logit everywhere, and the chunked eval path sees the same bias."""
-    from bert4clickpath_tpu.ops.chunked_eval import chunked_eval_stats, pick_chunk
+    from bert4clickpath.ops.chunked_eval import chunked_eval_stats, pick_chunk
 
     cfg = _cfg(head=HeadConfig("tied_softmax", tied_bias=True))
     model = ClickstreamModel(cfg)
@@ -381,8 +335,8 @@ def test_tied_bias_output():
 
     # chunked eval must score with the same bias: compare label_logit-driven
     # loss sums between dense and chunked paths
-    from bert4clickpath_tpu.constants import NUM_RESERVED_TOKENS
-    from bert4clickpath_tpu.ops.losses import masked_softmax_cross_entropy
+    from bert4clickpath.constants import NUM_RESERVED_TOKENS
+    from bert4clickpath.ops.losses import masked_softmax_cross_entropy
 
     labels = jnp.asarray(np.array([[3, -1, -1], [0, 1, -1]], np.int32))
     gathered = model.apply(
@@ -415,7 +369,7 @@ def test_qkv_fused_model_trains_and_tp_rejects():
     import numpy as np
     import pytest
 
-    from bert4clickpath_tpu import (
+    from bert4clickpath import (
         ClickstreamModel,
         FeatureConfig,
         HeadConfig,
@@ -423,12 +377,12 @@ def test_qkv_fused_model_trains_and_tp_rejects():
         ModelConfig,
         TrainConfig,
     )
-    from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-    from bert4clickpath_tpu.data.pipeline import ClozeDataset
-    from bert4clickpath_tpu.parallel import tp
-    from bert4clickpath_tpu.parallel.mesh import make_mesh
-    from bert4clickpath_tpu.training import schedules
-    from bert4clickpath_tpu.training.train_state import (
+    from bert4clickpath.data.generator import ClickStreamGenerator
+    from bert4clickpath.data.pipeline import ClozeDataset
+    from bert4clickpath.parallel import tp
+    from bert4clickpath.parallel.mesh import make_mesh
+    from bert4clickpath.training import schedules
+    from bert4clickpath.training.train_state import (
         TrainState,
         make_optimizer,
         make_train_step,

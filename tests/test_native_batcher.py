@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu.constants import LABEL_PAD, MASK_ID
-from bert4clickpath_tpu.data import native
-from bert4clickpath_tpu.data.cloze import ITEM_OFFSET
-from bert4clickpath_tpu.data.pipeline import ClozeDataset
-from bert4clickpath_tpu.vocab import Vocabulary
+from bert4clickpath.constants import LABEL_PAD, MASK_ID
+from bert4clickpath.data import native
+from bert4clickpath.data.cloze import ITEM_OFFSET
+from bert4clickpath.data.pipeline import ClozeDataset
+from bert4clickpath.vocab import Vocabulary
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native batcher unavailable (no g++?)"

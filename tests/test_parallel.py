@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from bert4clickpath_tpu import (
+from bert4clickpath import (
     ClickstreamModel,
     FeatureConfig,
     HeadConfig,
@@ -16,19 +16,19 @@ from bert4clickpath_tpu import (
     ModelConfig,
     TrainConfig,
 )
-from bert4clickpath_tpu.constants import LABEL_PAD, NUM_RESERVED_TOKENS
-from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-from bert4clickpath_tpu.data.pipeline import ClozeDataset
-from bert4clickpath_tpu.ops.losses import masked_softmax_cross_entropy
-from bert4clickpath_tpu.parallel import embedding as emb_ops
-from bert4clickpath_tpu.parallel import spmd
-from bert4clickpath_tpu.parallel.mesh import make_mesh
-from bert4clickpath_tpu.training.train_state import (
+from bert4clickpath.constants import LABEL_PAD, NUM_RESERVED_TOKENS
+from bert4clickpath.data.generator import ClickStreamGenerator
+from bert4clickpath.data.pipeline import ClozeDataset
+from bert4clickpath.ops.losses import masked_softmax_cross_entropy
+from bert4clickpath.parallel import embedding as emb_ops
+from bert4clickpath.parallel import spmd
+from bert4clickpath.parallel.mesh import make_mesh
+from bert4clickpath.training.train_state import (
     TrainState,
     make_optimizer,
     make_train_step as make_train_step_single,
 )
-from bert4clickpath_tpu.training import schedules
+from bert4clickpath.training import schedules
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -163,7 +163,7 @@ def test_spmd_train_step_matches_single_device():
 
     # single-device loss at the same params (dense tied head blinds nothing
     # because padding rows exist: compare against dense CE over valid rows)
-    from bert4clickpath_tpu.parallel.embedding import NEG_BIG  # noqa: F401
+    from bert4clickpath.parallel.embedding import NEG_BIG  # noqa: F401
 
     # dense reference loss FIRST (the SPMD step donates the state buffers):
     # full forward with the tied head on one device. The model's tied head
@@ -222,7 +222,7 @@ def test_spmd_eval_step():
     assert 0.0 <= stats["recall@10_sum"] <= stats["n"]
     # sanity vs dense ranking on one device
     logits = model.apply({"params": params}, b["features"], b["head_positions"])
-    from bert4clickpath_tpu.ops.metrics import ranking_stats
+    from bert4clickpath.ops.metrics import ranking_stats
 
     dense = ranking_stats(
         logits[..., : vocab.label_vocab_size], b["labels"], ks=(5, 10)
@@ -336,7 +336,7 @@ def test_spmd_transform_and_segments_match_single_device():
     # eval goes through the same forward
     ev = spmd.make_spmd_eval_step(cfg, mesh, vocab.label_vocab_size)
     stats = ev(params0, spmd.shard_batch(b, mesh, cfg))
-    from bert4clickpath_tpu.ops.metrics import ranking_stats
+    from bert4clickpath.ops.metrics import ranking_stats
 
     dense = ranking_stats(
         logits[..., : vocab.label_vocab_size], b["labels"], ks=(5, 10)
@@ -413,7 +413,7 @@ def test_dp_parity_head_step_matches_single_device():
 
 
 def test_dp_eval_step_matches_single_device():
-    from bert4clickpath_tpu.training.train_state import make_eval_step
+    from bert4clickpath.training.train_state import make_eval_step
 
     mesh, ds, vocab, cfg = _parity_head_setup()
     model = ClickstreamModel(cfg)
@@ -546,7 +546,7 @@ def test_spmd_factorized_input_matches_single_device():
 
     ev = spmd.make_spmd_eval_step(cfg, mesh, vocab.label_vocab_size)
     stats = ev(params0, spmd.shard_batch(b, mesh, cfg))
-    from bert4clickpath_tpu.ops.metrics import ranking_stats
+    from bert4clickpath.ops.metrics import ranking_stats
 
     dense = ranking_stats(
         logits[..., : vocab.label_vocab_size], b["labels"], ks=(5, 10)
@@ -693,7 +693,7 @@ def test_spmd_tied_bias_eval_matches_dense():
         for k, v in ev(params, spmd.shard_batch(b, mesh, cfg)).items()
     }
     logits = model.apply({"params": params}, b["features"], b["head_positions"])
-    from bert4clickpath_tpu.ops.metrics import ranking_stats
+    from bert4clickpath.ops.metrics import ranking_stats
 
     dense = ranking_stats(logits, b["labels"], ks=(5, 10))
     for k in ("recall@10_sum", "ndcg@10_sum", "recall@5_sum", "ndcg@5_sum"):
@@ -731,7 +731,7 @@ def test_tp_train_step_matches_single_device():
     """Megatron-style TP via XLA auto-partitioning must be bit-compatible
     (up to f32 reduction order) with the single-device step: same loss,
     same updated params after one step."""
-    from bert4clickpath_tpu.parallel import tp
+    from bert4clickpath.parallel import tp
 
     for head_kind in ("tied_softmax", "softmax"):
         mesh, ds, vocab, cfg = _tp_setup(head_kind)
@@ -778,8 +778,8 @@ def test_tp_train_step_matches_single_device():
 
 
 def test_tp_eval_step_matches_single_device():
-    from bert4clickpath_tpu.parallel import tp
-    from bert4clickpath_tpu.training.train_state import make_eval_step
+    from bert4clickpath.parallel import tp
+    from bert4clickpath.training.train_state import make_eval_step
 
     mesh, ds, vocab, cfg = _tp_setup()
     model = ClickstreamModel(cfg)
@@ -805,7 +805,7 @@ def test_tp_eval_step_matches_single_device():
 
 
 def test_tp_rejects_bad_shapes():
-    from bert4clickpath_tpu.parallel import tp
+    from bert4clickpath.parallel import tp
 
     mesh, ds, vocab, cfg = _tp_setup()
     bad = ModelConfig(
@@ -823,7 +823,7 @@ def test_spmd_checkpoint_resume_matches_uninterrupted(tmp_path):
     """Failure-recovery rehearsal for the sharded tier: save mid-training,
     restore on host, re-shard over the mesh, continue — the resumed run's
     losses must equal the uninterrupted run step for step."""
-    from bert4clickpath_tpu.training import checkpoint as ckpt_lib
+    from bert4clickpath.training import checkpoint as ckpt_lib
 
     mesh, ds, vocab, cfg = _spmd_setup()
     model = ClickstreamModel(cfg)
@@ -874,7 +874,7 @@ def test_spmd_checkpoint_resume_matches_uninterrupted(tmp_path):
 def test_dp_chunked_eval_matches_single_device():
     """DP eval with the chunked catalog scan (no (B_local, P, V) logits)
     == the single-device chunked eval — both head kinds."""
-    from bert4clickpath_tpu.training.train_state import make_eval_step
+    from bert4clickpath.training.train_state import make_eval_step
 
     for setup in (_parity_head_setup, _spmd_setup):
         if setup is _spmd_setup:
@@ -902,7 +902,7 @@ def test_dp_chunked_eval_matches_single_device():
 def test_dp_scan_step_matches_sequential():
     """DP scan variant (K steps per dispatch inside shard_map) == K
     sequential DP steps: same losses, same final params."""
-    from bert4clickpath_tpu.data.cloze import stack_batches
+    from bert4clickpath.data.cloze import stack_batches
 
     mesh, ds, vocab, cfg = _parity_head_setup()
     model = ClickstreamModel(cfg)
@@ -1045,7 +1045,7 @@ def test_sampled_spmd_matches_single_device():
     """Sampled-softmax training over the row-sharded table (pjit
     auto-sharding) == the single-device sampled step: same rng => same
     negatives => same loss and params trajectory."""
-    from bert4clickpath_tpu.training.train_state import make_train_step
+    from bert4clickpath.training.train_state import make_train_step
 
     mesh, ds, vocab, cfg = _spmd_setup()
     model = ClickstreamModel(cfg)
@@ -1107,7 +1107,7 @@ def _tp_spmd_setup(n_items=22, d=16, mesh_shape=(4, 2)):
 
 def test_tp_spmd_train_step_matches_single_device():
     """Composed tier loss at the same params == dense single-device loss."""
-    from bert4clickpath_tpu.parallel import tp_spmd
+    from bert4clickpath.parallel import tp_spmd
 
     mesh, ds, vocab, cfg = _tp_spmd_setup()
     model = ClickstreamModel(cfg)
@@ -1139,7 +1139,7 @@ def test_tp_spmd_trajectory_matches_spmd_tier():
     SPMD tier (same mesh, params, batches): identical losses AND params —
     i.e. the hand-written Megatron f/g VJPs produce exactly the replicated
     gradient."""
-    from bert4clickpath_tpu.parallel import tp_spmd
+    from bert4clickpath.parallel import tp_spmd
 
     mesh, ds, vocab, cfg = _tp_spmd_setup()
     model = ClickstreamModel(cfg)
@@ -1195,7 +1195,7 @@ def test_tp_spmd_trajectory_matches_spmd_tier():
 
 
 def test_tp_spmd_eval_matches_spmd_tier():
-    from bert4clickpath_tpu.parallel import tp_spmd
+    from bert4clickpath.parallel import tp_spmd
 
     mesh, ds, vocab, cfg = _tp_spmd_setup()
     model = ClickstreamModel(cfg)
@@ -1218,8 +1218,8 @@ def test_tp_spmd_eval_matches_spmd_tier():
 
 def test_tp_spmd_scan_matches_sequential():
     """steps_per_call=K on the composed tier == K sequential steps."""
-    from bert4clickpath_tpu.data.cloze import stack_batches
-    from bert4clickpath_tpu.parallel import tp_spmd
+    from bert4clickpath.data.cloze import stack_batches
+    from bert4clickpath.parallel import tp_spmd
 
     mesh, ds, vocab, cfg = _tp_spmd_setup()
     model = ClickstreamModel(cfg)
@@ -1267,10 +1267,10 @@ def test_tp_spmd_bf16_matches_spmd_tier():
     """bf16 composed tier vs bf16 replicated-encoder tier: the row-parallel
     partials accumulate in f32 and all-reduce in f32 (one rounding, after
     the psum), so the two programs stay within bf16 rounding of each other
-    — quantifies the drift ADVICE round-4 flagged as untested."""
+    — quantifies that drift."""
     import dataclasses
 
-    from bert4clickpath_tpu.parallel import tp_spmd
+    from bert4clickpath.parallel import tp_spmd
 
     mesh, ds, vocab, cfg = _tp_spmd_setup()
     cfg = dataclasses.replace(cfg, dtype="bfloat16")
@@ -1300,7 +1300,7 @@ def test_tp_spmd_bf16_matches_spmd_tier():
 
 
 def test_tp_spmd_rejects_bad_combinations():
-    from bert4clickpath_tpu.parallel import tp_spmd
+    from bert4clickpath.parallel import tp_spmd
 
     mesh, ds, vocab, cfg = _tp_spmd_setup()
     import dataclasses

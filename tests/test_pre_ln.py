@@ -16,15 +16,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bert4clickpath_tpu import (
+from bert4clickpath import (
     ClickstreamModel,
     FeatureConfig,
     HeadConfig,
     ModelConfig,
     TrainConfig,
 )
-from bert4clickpath_tpu.training.train_state import TrainState, make_optimizer
-from bert4clickpath_tpu.training import schedules
+from bert4clickpath.training.train_state import TrainState, make_optimizer
+from bert4clickpath.training import schedules
 
 
 def _cfg(norm_style="post", num_layers=2):
@@ -69,7 +69,7 @@ def test_pre_ln_adds_final_ln_and_changes_math():
 
 def test_pre_ln_deep_grads_finite_and_flow():
     """6 layers: every param (including layer_0) gets a finite, nonzero grad."""
-    from bert4clickpath_tpu.ops.losses import masked_softmax_cross_entropy
+    from bert4clickpath.ops.losses import masked_softmax_cross_entropy
 
     feats, pos = _batch()
     labels = jnp.asarray(
@@ -114,7 +114,7 @@ def test_tp_spmd_pre_ln_trajectory_matches_spmd_tier():
     replicated-encoder SPMD tier under pre-LN: the hand-written TPEncoderApply
     must mirror the flax encoder's pre-LN block order (incl. ln_final)."""
     import test_parallel as tp_tests
-    from bert4clickpath_tpu.parallel import spmd, tp_spmd
+    from bert4clickpath.parallel import spmd, tp_spmd
 
     mesh, ds, vocab, cfg = tp_tests._tp_spmd_setup()
     cfg = dataclasses.replace(cfg, norm_style="pre")

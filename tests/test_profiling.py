@@ -1,7 +1,9 @@
 """Roofline accounting sanity checks."""
 
-from bert4clickpath_tpu import FeatureConfig, HeadConfig, ModelConfig
-from bert4clickpath_tpu.utils import profiling
+import pytest
+
+from bert4clickpath import FeatureConfig, HeadConfig, ModelConfig
+from bert4clickpath.utils import profiling
 
 
 def _cfg(head):
@@ -27,7 +29,10 @@ def test_step_cost_tied_head_dominated_by_head():
 def test_speed_of_light_report():
     cfg = _cfg(HeadConfig("tied_softmax", output_size=54542))
     cost = profiling.step_cost(cfg, batch=256, label_vocab=54542)
-    rep = profiling.speed_of_light(cost, measured_step_seconds=9e-3)
+    rep = profiling.speed_of_light(
+        cost, measured_step_seconds=9e-3,
+        peak=profiling.peaks("NVIDIA H100 80GB HBM3"),
+    )
     assert rep["bound"] in ("flops", "hbm")
     assert 0 < rep["mfu"] < 1
     assert rep["speed_of_light_ms"] <= rep["measured_ms"]
@@ -37,3 +42,23 @@ def test_mlp_head_cost():
     cfg = _cfg(HeadConfig("softmax", (1024, 512, 256, 128), 54542))
     cost = profiling.step_cost(cfg, batch=256, label_vocab=54542, fused_ce=False)
     assert cost.hbm_bytes > 500e6  # materialized logits dominate
+
+
+@pytest.mark.parametrize(
+    "kind,flops,bw",
+    [
+        ("NVIDIA H100 80GB HBM3", 989e12, 3.35e12),
+        ("NVIDIA H100 PCIe", 756e12, 2.0e12),
+        ("NVIDIA H100 NVL", 835e12, 3.9e12),
+    ],
+)
+def test_peaks_table_by_device_kind(kind, flops, bw):
+    p = profiling.peaks(kind)
+    assert (p.flops, p.bytes_per_s) == (flops, bw)
+    assert "data sheet" in p.source
+
+
+@pytest.mark.parametrize("kind", ["cpu", "Tesla V100-SXM2-16GB", "NVIDIA A100-SXM4-80GB"])
+def test_unknown_device_kind_raises(kind):
+    with pytest.raises(KeyError, match="no published peaks"):
+        profiling.peaks(kind)

@@ -5,7 +5,7 @@ parses (tags, steps, values, CRCs) — validated against the installed
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu.utils.tb import EventWriter
+from bert4clickpath.utils.tb import EventWriter
 
 
 def _read_events(path):
@@ -39,24 +39,24 @@ def test_trainer_writes_events_and_async_best_save(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from bert4clickpath_tpu import (
+    from bert4clickpath import (
         ClickstreamModel,
         FeatureConfig,
         HeadConfig,
         ModelConfig,
         TrainConfig,
     )
-    from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-    from bert4clickpath_tpu.data.pipeline import ClozeDataset
-    from bert4clickpath_tpu.training import checkpoint as ckpt_lib
-    from bert4clickpath_tpu.training import schedules
-    from bert4clickpath_tpu.training.train_state import (
+    from bert4clickpath.data.generator import ClickStreamGenerator
+    from bert4clickpath.data.pipeline import ClozeDataset
+    from bert4clickpath.training import checkpoint as ckpt_lib
+    from bert4clickpath.training import schedules
+    from bert4clickpath.training.train_state import (
         TrainState,
         make_eval_step,
         make_optimizer,
         make_train_step,
     )
-    from bert4clickpath_tpu.training.trainer import Trainer
+    from bert4clickpath.training.trainer import Trainer
 
     gen = ClickStreamGenerator(n_items=30, session_cohesiveness=100, seed=0)
     seqs, _ = gen.generate_sessions(120)

@@ -8,26 +8,26 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu import (
+from bert4clickpath import (
     ClickstreamModel,
     FeatureConfig,
     HeadConfig,
     ModelConfig,
     TrainConfig,
 )
-from bert4clickpath_tpu.data.generator import ClickStreamGenerator
-from bert4clickpath_tpu.data.pipeline import ClozeDataset
-from bert4clickpath_tpu.training import checkpoint as ckpt_lib
-from bert4clickpath_tpu.training import schedules
-from bert4clickpath_tpu.training.serving import ServingModel
-from bert4clickpath_tpu.training.train_state import (
+from bert4clickpath.data.generator import ClickStreamGenerator
+from bert4clickpath.data.pipeline import ClozeDataset
+from bert4clickpath.training import checkpoint as ckpt_lib
+from bert4clickpath.training import schedules
+from bert4clickpath.training.serving import ServingModel
+from bert4clickpath.training.train_state import (
     TrainState,
     make_eval_step,
     make_optimizer,
     make_train_step,
 )
-from bert4clickpath_tpu.training.trainer import Trainer
-from bert4clickpath_tpu.vocab import Vocabulary
+from bert4clickpath.training.trainer import Trainer
+from bert4clickpath.vocab import Vocabulary
 
 
 def _setup(head_kind="tied_softmax", n_items=30, n_sessions=80):
@@ -328,7 +328,7 @@ def test_chunked_eval_step_matches_dense():
     ds, vocab, cfg, model = _setup("tied_softmax")
     b = _to_device(next(ds.train_batches(8, seed=0)))
     params = model.init({"params": jax.random.PRNGKey(0)}, b["features"], b["head_positions"])
-    from bert4clickpath_tpu.training.train_state import make_eval_step as mes
+    from bert4clickpath.training.train_state import make_eval_step as mes
 
     dense = mes(model)(params, b)
     chunked = mes(model, chunked_num_valid=vocab.label_vocab_size)(params, b)
@@ -345,8 +345,8 @@ def test_scanned_eval_matches_per_batch():
     """make_eval_step(steps_per_call=K) over stacked chunks (ragged tail
     included) == per-batch eval merged: stats are sums, so scanning only
     changes dispatch count, never the numbers."""
-    from bert4clickpath_tpu.data.cloze import stack_batches
-    from bert4clickpath_tpu.training.train_state import make_eval_step as mes
+    from bert4clickpath.data.cloze import stack_batches
+    from bert4clickpath.training.train_state import make_eval_step as mes
 
     ds, vocab, cfg, model = _setup("tied_softmax")
     b0 = _to_device(next(ds.train_batches(8, seed=0)))
@@ -529,8 +529,8 @@ def test_serving_chunked_scores_match_dense(tmp_path):
         recs = served.recommend(sessions, k=5)
 
         # dense reference: same token build, full logits, log_softmax top-k
-        from bert4clickpath_tpu.data.cloze import ITEM_OFFSET, token_length
-        from bert4clickpath_tpu.constants import CLS_ID, MASK_ID, PAD_ID, SEP_ID
+        from bert4clickpath.data.cloze import ITEM_OFFSET, token_length
+        from bert4clickpath.constants import CLS_ID, MASK_ID, PAD_ID, SEP_ID
 
         max_items = cfg.max_len - 3
         tokens = np.full((2, token_length(max_items)), PAD_ID, np.int32)
@@ -563,7 +563,7 @@ def test_serving_chunked_scores_match_dense(tmp_path):
 def test_auto_monitor_rejects_pinned_mode():
     # monitor='auto' + pinned mode could invert best-model selection
     # (mode='min' while auto resolves to val_ndcg@10 tracks the WORST epoch)
-    from bert4clickpath_tpu.config import TrainConfig
+    from bert4clickpath.config import TrainConfig
 
     with pytest.raises(ValueError):
         TrainConfig(monitor_mode="min")
@@ -598,15 +598,15 @@ def test_serving_multivariable_matches_dense(tmp_path):
     """(event, item) paired-feature serving: dict sessions, [MASK] on the
     item feature + [NA] on the event feature at the appended slot, exact
     match vs the dense log-softmax top-k."""
-    from bert4clickpath_tpu.constants import (
+    from bert4clickpath.constants import (
         CLS_ID,
         MASK_ID,
         NA_ID,
         PAD_ID,
         SEP_ID,
     )
-    from bert4clickpath_tpu.data.cloze import ITEM_OFFSET, token_length
-    from bert4clickpath_tpu.vocab import Vocabulary
+    from bert4clickpath.data.cloze import ITEM_OFFSET, token_length
+    from bert4clickpath.vocab import Vocabulary
 
     item_vocab = Vocabulary([f"item_{i}" for i in range(25)])
     event_vocab = Vocabulary(["view", "click", "buy"])
@@ -687,8 +687,8 @@ def test_scan_train_step_matches_sequential():
     """K scanned steps in one dispatch == K sequential single steps:
     same per-step losses, same final params (identical math, only the
     host interaction changes)."""
-    from bert4clickpath_tpu.data.cloze import stack_batches
-    from bert4clickpath_tpu.training.train_state import make_scan_train_step
+    from bert4clickpath.data.cloze import stack_batches
+    from bert4clickpath.training.train_state import make_scan_train_step
 
     ds, vocab, cfg, model = _setup()
     it = ds.train_batches(16, seed=0)
@@ -725,8 +725,8 @@ def test_scan_train_step_matches_sequential():
 def test_trainer_steps_per_call(tmp_path):
     """Trainer chunked mode: same epochs/records, train_loss is the mean
     over all K*chunks steps; config errors rejected."""
-    from bert4clickpath_tpu.data.cloze import stack_batches
-    from bert4clickpath_tpu.training.train_state import make_scan_train_step
+    from bert4clickpath.data.cloze import stack_batches
+    from bert4clickpath.training.train_state import make_scan_train_step
 
     ds, vocab, cfg, model = _setup()
     tcfg = TrainConfig(batch_size=16, steps_per_epoch=4, n_epochs=2)
@@ -790,7 +790,7 @@ def test_serving_batch_bucketing(tmp_path):
 def test_serving_warmup_multivariable(tmp_path):
     """Warm-up must use dict-shaped empty sessions on multi-feature models
     (code-review round 4: list-shaped warm-up crashed the constructor)."""
-    from bert4clickpath_tpu.data.generator import ClickStreamGenerator
+    from bert4clickpath.data.generator import ClickStreamGenerator
 
     gen = ClickStreamGenerator(n_items=30, seed=0)
     vocab = gen.item_vocab()

@@ -7,7 +7,7 @@ OOV (input_pipeline.py:187-192)."""
 import numpy as np
 import pytest
 
-from bert4clickpath_tpu.constants import (
+from bert4clickpath.constants import (
     CLS_ID,
     MASK_ID,
     NUM_RESERVED_TOKENS,
@@ -16,7 +16,7 @@ from bert4clickpath_tpu.constants import (
     SEP_ID,
     UNK_ID,
 )
-from bert4clickpath_tpu.vocab import Vocabulary
+from bert4clickpath.vocab import Vocabulary
 
 
 def test_reserved_token_ids():
